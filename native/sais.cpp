@@ -1,7 +1,7 @@
 // SA-IS suffix array construction (induced sorting), O(n) time.
 //
 // This is the native host-side index-construction core of tpufm: the
-// TPU-native framework's equivalent of the reference's vendored
+// framework's equivalent of the reference's vendored
 // libdivsufsort-64 (reference resources/divsufsort.c, resources/div-tools/),
 // which is only used by the index builder (reference src/genFMindex.c:482).
 // We implement SA-IS (Nong, Zhang & Chan 2009) from scratch instead of the
@@ -16,11 +16,10 @@
 // bound (one potential cache miss per element on the random bucket
 // writes), so halving the element size roughly doubles the entries per
 // cache line on both the sequential read side and the per-bucket write
-// streams; measured ~1.9x on a 250 Mbase build (docs/PERF.md round 5).
+// streams.
 // This stands in for the reference's OpenMP-parallel sssort
-// (resources/divsufsort.c:95-123) on this 1-core host, where thread
-// parallelism cannot help; the genuinely parallel build path is the
-// on-device builder (tpufm/index/builder_device.py, ~11x at 250 Mbase).
+// (resources/divsufsort.c:95-123) single-threaded; the parallel build
+// path is the on-device builder (tpufm/index/builder_device.py).
 //
 // Exposed C ABI (used from Python via ctypes):
 //   int tpufm_sais_u8(const uint8_t* text, int64_t n, int64_t* sa)

@@ -4,7 +4,8 @@ Loads a prebuilt 100 Mbase index from the mmap .tpufm store, joins a
 2-process jax.distributed cluster (2 virtual CPU devices each), and runs
 DataParallelEngine with a device-built prefix LUT over the global 4-device
 mesh, streaming the read batch in waves. Run:
-python distworker_scale.py <coordinator> <nproc> <pid> <workdir>."""
+python distworker_scale.py <coordinator> <nproc> <pid> <workdir>.
+CPU-only by design, like distworker.py."""
 
 import os
 import sys

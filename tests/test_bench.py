@@ -2,15 +2,17 @@
 schema, the two-layer verification (oracle sample + full-batch CPU twin),
 gather-traffic accounting, and the genome-record cache round trip. Rates
 measured here are meaningless — only correctness of the harness is under
-test (the real records run on the TPU via bench.py)."""
+test (the real records run on the GPU via bench.py)."""
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 from tpufm.bench import (
     gather_traffic_bytes,
+    hbm_peak_bytes_per_s,
     run_bench,
     run_bench_genome,
 )
@@ -28,7 +30,12 @@ def test_run_bench_record_schema_and_verification():
     # traffic accounting: (24-4)/2 rounds x 2 ends x row bytes + 8 B LUT
     row_words = 2 * 2 * (64 // 32) + 16
     assert d["gathered_bytes_per_pass"] == 2048 * (10 * 2 * 4 * row_words + 8)
-    assert d["achieved_hbm_gbps"] > 0
+    # CPU run: no device metric and no reference binaries -> nulls, and
+    # the record names the device it ran on
+    assert d["achieved_hbm_gbps"] is None
+    assert d["fraction_of_sol"] is None and d["speed_of_light_steps_per_s"] is None
+    assert r["vs_baseline"] is None
+    assert (d["platform"], d["device_kind"], d["device_count"]) == ("cpu", "cpu", 8)
     json.dumps(r)  # records must be JSON-serializable
 
 
@@ -77,3 +84,63 @@ def test_run_bench_genome_k_follows_recommendation(tmp_path):
                           full_verify=False, cache_dir=tmp_path)
     assert g0["detail"]["lut_m"] == 0
     assert g0["detail"]["bit_exact_vs_oracle"]
+
+
+class _Dev:
+    def __init__(self, platform, kind):
+        self.platform, self.device_kind = platform, kind
+
+
+@pytest.mark.parametrize(
+    "platform,kind,want",
+    [
+        ("gpu", "NVIDIA H100 80GB HBM3", 3.35e12),
+        ("cpu", "cpu", None),
+        ("gpu", "NVIDIA Unknown 1GB", ValueError),
+    ],
+)
+def test_hbm_peak_table(platform, kind, want):
+    if want is ValueError:
+        with pytest.raises(ValueError, match="no published HBM peak"):
+            hbm_peak_bytes_per_s(_Dev(platform, kind))
+    else:
+        assert hbm_peak_bytes_per_s(_Dev(platform, kind)) == want
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_location(monkeypatch, tmp_path, env_set):
+    import jax
+
+    from tpufm.utils.compile_cache import DEFAULT_CACHE_DIR, enable_compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        want = str(tmp_path)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        want = str(DEFAULT_CACHE_DIR)
+    try:
+        assert enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    assert DEFAULT_CACHE_DIR.name == ".jaxcache"
+    assert DEFAULT_CACHE_DIR.parent == Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["search", "i.fmi", "q.qry", "12", "4", "--engine", "pallas"],
+        ["bench", "--engine", "pallas"],
+        ["sweep", "--engines", "pallas"],
+    ],
+)
+def test_pallas_engine_rejected(argv, capsys):
+    from tpufm import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    assert e.value.code == 2
+    assert "invalid choice: 'pallas'" in capsys.readouterr().err

@@ -39,7 +39,7 @@ def test_cli_full_flow(tmp_path, ref, monkeypatch, capsys):
     assert qry.exists()
 
     cli.main(["search", str(fmi), str(qry), "24", "64", "--iterations", "1"])
-    res = load_results(str(fmi) + ".res.tpu")
+    res = load_results(str(fmi) + ".res.gpu")
     assert res.shape == (64, 2)
     assert (res[:, 1] > res[:, 0]).all()  # sampled reads all hit
 
@@ -49,7 +49,7 @@ def test_cli_full_flow(tmp_path, ref, monkeypatch, capsys):
         "--iterations", "1", "--engine", "xla-ac",
         "--output", str(tmp_path / "ac.res"),
     ])
-    cli.main(["diff", str(fmi) + ".res.tpu", str(tmp_path / "ac.res")])
+    cli.main(["diff", str(fmi) + ".res.gpu", str(tmp_path / "ac.res")])
     assert "IDENTICAL" in capsys.readouterr().out
 
     # LUT engine must agree too
@@ -58,7 +58,7 @@ def test_cli_full_flow(tmp_path, ref, monkeypatch, capsys):
         "--iterations", "1", "--lut", "4",
         "--output", str(tmp_path / "lut.res"),
     ])
-    cli.main(["diff", str(fmi) + ".res.tpu", str(tmp_path / "lut.res")])
+    cli.main(["diff", str(fmi) + ".res.gpu", str(tmp_path / "lut.res")])
     assert "IDENTICAL" in capsys.readouterr().out
 
 
@@ -104,22 +104,24 @@ def test_cli_dumpentry_and_sweep(tmp_path, ref, monkeypatch, capsys):
 
 def test_sweep_engine_dispatch():
     """Unknown engine names must raise (round-1 bug: they silently became
-    XLAEngine rows); pallas and lut_m rows must dispatch for real."""
+    XLAEngine rows); every layout and lut_m row must dispatch for real."""
     import pytest
 
     from tpufm.sweep import run_sweep
 
-    with pytest.raises(ValueError, match="unknown engine"):
-        run_sweep(refsizes=(4096,), ks=(2,), ds=(32,), engines=("palas",),
-                  num_queries=32, query_len=12, iterations=1)
+    for unknown in ("palas", "pallas"):
+        with pytest.raises(ValueError, match="unknown engine"):
+            run_sweep(refsizes=(4096,), ks=(2,), ds=(32,), engines=(unknown,),
+                      num_queries=32, query_len=12, iterations=1)
 
     recs = run_sweep(
         refsizes=(4096,), ks=(2,), ds=(32,),
-        engines=("xla", "pallas", "xla-split"), lut_ms=(0, 4),
+        engines=("xla", "xla-paired", "xla-split"), lut_ms=(0, 4),
         num_queries=64, query_len=12, iterations=1,
     )
     by = {(r["engine"], r["lut_m"]) for r in recs}
-    assert by == {("xla", 0), ("xla", 4), ("pallas", 0), ("pallas", 4),
+    # xla-paired needs a LUT: its lut_m=0 row does not exist
+    assert by == {("xla", 0), ("xla", 4), ("xla-paired", 4),
                   ("xla-split", 0), ("xla-split", 4)}
     assert all(r["bit_exact"] for r in recs)
 
@@ -317,7 +319,7 @@ def test_cli_any_length_search(tmp_path, ref, monkeypatch):
     cli.main(["genreads", str(path), str(n), "25", "48", "--seed", "5",
               "--output", "odd.qry"])  # 25 % 3 == 1
     cli.main(["search", str(fmi), "odd.qry", "25", "48", "--iterations", "1"])
-    res = load_results(str(fmi) + ".res.tpu")
+    res = load_results(str(fmi) + ".res.gpu")
     tail = load_npz(str(fmi) + ".tail.npz")
     qs = load_queries(tmp_path / "odd.qry", 25, 48)
     np.testing.assert_array_equal(res, search_oracle(tail, qs))
@@ -352,7 +354,7 @@ def test_cli_odd_length_without_tail_derives(tmp_path, ref, monkeypatch):
     tail = _bi(codes, _IC(k=1, d=64), sa_method="doubling")
     qs = load_queries("odd.qry", 25, 16)
     np.testing.assert_array_equal(
-        load_results(str(fmi) + ".res.tpu"), search_oracle(tail, qs)
+        load_results(str(fmi) + ".res.gpu"), search_oracle(tail, qs)
     )
 
 

@@ -98,29 +98,30 @@ def test_fmi_header_fields(tmp_path, rng):
 
 
 def test_recommend_config():
-    from tpufm.config import recommend_config
+    from tpufm.config import recommend_config, search_bytes
 
-    r = recommend_config(10_000_000)
-    assert r == {"k": 3, "d": 192, "lut_m": 12}  # round-4 ladder, probe79
-    r = recommend_config(60_000_000)
-    assert r == {"k": 3, "d": 320, "lut_m": 12}
-    r = recommend_config(2_000_000_000)
-    assert r == {"k": 3, "d": 192, "lut_m": 12}
-    # genome scale: d=192's doubled gather pre-copy cannot fit one chip
-    # (probe85 OOM at 16.7M rows); d=320's one-tile rows do (probe86)
-    r = recommend_config(3_200_000_000)
-    assert r == {"k": 3, "d": 320, "lut_m": 12}
+    # no reported limit: no capacity-driven choice at any size
+    for refsize in (10_000_000, 750_000_000, 3_200_000_000):
+        assert recommend_config(refsize) == {"k": 3, "d": 192, "lut_m": 12}
+    assert recommend_config(10_000_000, serving=True)["lut_m"] == 12
+    # d=320 only when the d=192 table does not fit the device
+    limit = search_bytes(1_000_000_000, 3, 192, 12)
+    assert recommend_config(1_000_000_000, bytes_limit=limit)["d"] == 192
+    assert recommend_config(1_000_000_001 + 192 * 4, bytes_limit=limit)["d"] == 320
     # k must divide the query length
     assert recommend_config(10_000_000, query_len=8)["k"] == 2
     assert recommend_config(10_000_000, query_len=100)["lut_m"] == 12
     # serving=True opts into lut15 when it fits and divides the length
-    # (probes 87c/93a/94: +2.4-2.7% in both regimes, 8.6 GB HBM)
-    assert recommend_config(10_000_000, serving=True)["lut_m"] == 15
-    assert recommend_config(250_000_000, serving=True)["lut_m"] == 15
-    # capacity bound: no lut15 co-residency past ~1 Gbase
-    assert recommend_config(3_200_000_000, serving=True)["lut_m"] == 12
+    big = 60 << 30
+    assert recommend_config(10_000_000, serving=True, bytes_limit=big)["lut_m"] == 15
+    assert recommend_config(750_000_000, serving=True, bytes_limit=big)["lut_m"] == 15
+    # capacity bound: no lut15 co-residency when table + LUT overflow
+    small = search_bytes(750_000_000, 3, 192, 12)
+    assert recommend_config(750_000_000, serving=True, bytes_limit=small)["lut_m"] == 12
     # k=2 cannot use a 15-mer LUT (15 % 2 != 0)
-    assert recommend_config(10_000_000, query_len=100, serving=True)["lut_m"] == 12
+    assert recommend_config(
+        10_000_000, query_len=100, serving=True, bytes_limit=big
+    )["lut_m"] == 12
 
 
 def test_encoding_matches_reference_bit_tricks():

@@ -1,5 +1,5 @@
 """locate() extension: sampled-SA position resolution (beyond the reference,
-which only reports interval counts — docs/ROADMAP.md)."""
+which only reports interval counts)."""
 
 import numpy as np
 import pytest
@@ -110,7 +110,7 @@ def test_locate_rows_wave_streaming(rng):
 
 def test_data_parallel_locate_matches_oracle(rng):
     """Replicated-table, row-sharded locate over the 8-device virtual mesh
-    (VERDICT round 2: locate must scale like search)."""
+    (locate must scale like search)."""
     import jax
 
     from tpufm.parallel import make_mesh, DataParallelLocate

@@ -1,6 +1,6 @@
 """Hamming-distance<=1 counting — `count --mismatches 1`.
 
-TPU formulation of approximate matching (tpufm extension; the reference has
+Batched formulation of approximate matching (tpufm extension; the reference has
 none): each read's 3L+1 single-substitution variants are generated on device
 and ride the ordinary batched scan as extra batch lanes — no branchy
 backtracking, full sensitivity, exact counts. Ground truth here is a naive

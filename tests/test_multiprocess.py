@@ -2,7 +2,10 @@
 devices join one jax.distributed cluster and run DataParallelEngine over
 the global 4-device mesh (BASELINE.md scaling design; SURVEY.md section 5
 'distributed communication backend'). Every process's replicated result
-must be bit-exact vs the single-process oracle."""
+must be bit-exact vs the single-process oracle.
+
+CPU-only by design: each worker process would reserve most of a card's
+memory, so the GPU path stays one process per card (chip_smoke.py)."""
 
 import os
 import socket

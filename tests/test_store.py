@@ -1,6 +1,5 @@
 """The mmap-able `.tpufm` store must round-trip every index kind exactly and
-drive search/locate with no rebuild (genome-scale persistence,
-docs/PERF.md 'Persistence')."""
+drive search/locate with no rebuild (genome-scale persistence)."""
 
 import numpy as np
 import pytest
@@ -94,7 +93,7 @@ def test_cli_store_flow(tmp_path, rng, monkeypatch):
               "--iterations", "1"])
     from tpufm.io.results import load_results
 
-    res = load_results(str(tmp_path / "idx.tpufm.res.tpu"))
+    res = load_results(str(tmp_path / "idx.tpufm.res.gpu"))
     index = build_index(codes, IndexConfig(k=2, d=32))
     from tpufm.io.fasta import load_queries
 

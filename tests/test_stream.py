@@ -87,7 +87,7 @@ def test_search_resumable_torn_sidecar(tmp_path, rng):
 
 def test_search_resumable_content_fingerprint(tmp_path, rng):
     # Same shape, DIFFERENT query content: stale waves must not be spliced
-    # in (ADVICE round 2 — the sidecar carries a content fingerprint).
+    # in (the sidecar carries a content fingerprint).
     codes = rng.integers(0, 4, size=8000, dtype=np.uint8)
     index = build_index(codes, IndexConfig(k=2, d=32))
     q1 = generate_reads(codes, 24, 64, seed=1)

@@ -74,7 +74,7 @@ def test_native_rejects_byte_255(rng):
 @pytest.mark.parametrize("n", [0, 1, 2, 3, 10, 100, 1000, 4097])
 def test_device_matches_doubling(rng, n):
     # Prefix doubling ON the device (CPU backend in tests; same program on
-    # TPU) must be bit-identical to the host paths.
+    # the GPU) must be bit-identical to the host paths.
     from tpufm.index.sa_device import suffix_array_device
 
     codes = rng.integers(0, 4, size=n, dtype=np.uint8)
@@ -103,3 +103,54 @@ def test_device_rejects_wide_alphabet(rng):
     codes[0] = 100
     with pytest.raises(ValueError, match=r"\[0, 6\]"):
         suffix_array_device(codes)
+
+
+@pytest.mark.parametrize("kind", ["random", "repetitive", "single"])
+def test_device_two_pass_sort_matches_native(rng, kind):
+    # each doubling round sorts (rank, second) as two stable single-key
+    # sorts; the result must equal native SA-IS on texts that take one,
+    # several and all ceil(log2(n/10)) rounds
+    from tpufm.index.sa_device import suffix_array_device
+
+    n = 5000
+    codes = {
+        "random": rng.integers(0, 4, size=n, dtype=np.uint8),
+        "repetitive": np.frombuffer(b"\x00\x01\x02" * (n // 3), np.uint8).copy(),
+        "single": np.full(n, 2, np.uint8),
+    }[kind]
+    want = suffix_array_native(codes)
+    if want is None:
+        pytest.skip("native SA-IS library unavailable")
+    np.testing.assert_array_equal(suffix_array_device(codes), want)
+
+
+@pytest.mark.parametrize(
+    "limit,ok", [(None, True), (48 * 1000, True), (48 * 1000 - 1, False)]
+)
+def test_device_build_capacity_guard(monkeypatch, limit, ok):
+    # the device build refuses a text whose working set exceeds the
+    # device's reported allocator limit; no reported limit, no refusal
+    import tpufm.config
+    from tpufm.index import sa_device
+
+    monkeypatch.setattr(sa_device, "DEVICE_BUILD_BYTES_PER_BASE", 48)
+    monkeypatch.setattr(tpufm.config, "device_bytes_limit", lambda d=None: limit)
+    if ok:
+        sa_device.check_device_build_fits(1000)
+    else:
+        with pytest.raises(ValueError, match="device's limit"):
+            sa_device.check_device_build_fits(1000)
+
+
+@pytest.mark.parametrize("num_keys,n_ops", [(1, 2), (1, 3), (2, 3), (3, 3)])
+def test_lex_sort_matches_numpy_lexsort(rng, num_keys, n_ops):
+    # small key ranges force ties: ties beyond the keys keep input order
+    import jax.numpy as jnp
+
+    from tpufm.index.sa_device import lex_sort
+
+    ops = [rng.integers(0, 4, size=3000).astype(np.uint32) for _ in range(n_ops)]
+    order = np.lexsort(ops[:num_keys][::-1])  # stable, first key primary
+    got = lex_sort([jnp.asarray(a) for a in ops], num_keys)
+    for g, a in zip(got, ops):
+        np.testing.assert_array_equal(np.asarray(g), a[order])

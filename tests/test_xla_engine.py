@@ -230,8 +230,7 @@ def test_xla_paired_requires_lut():
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
 def test_pick_counter_matches_take_along_axis(rng, k):
-    """_pick_counter (binary-tree select, docs/PERF.md 'The counter pick,
-    solved') must select exactly counters[..., code] for every k — the
+    """_pick_counter (binary-tree select) must select exactly counters[..., code] for every k — the
     2k halving levels walk code's bits high-to-low at every k; pin that
     down directly rather than only through the engine parity tests."""
     import jax.numpy as jnp

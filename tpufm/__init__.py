@@ -1,17 +1,16 @@
-"""tpufm — TPU-native k-step FM-index search engine.
+"""tpufm — k-step FM-index search engine in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the
-achacond/k-step_FM-index benchmarking suite (see SURVEY.md): builds k-step
-FM-indexes (BWT + block-sampled Occ counters + 2-bit-plane bitmaps) from DNA
-references on host, and runs exact-match backward search over large read
-batches on TPU, bit-exact against the reference CPU baseline
-(/root/reference/src/fmIndexCPUBaseline.c).
+A JAX/XLA framework with the capabilities of the achacond/k-step_FM-index
+benchmarking suite (see SURVEY.md): builds k-step FM-indexes (BWT +
+block-sampled Occ counters + 2-bit-plane bitmaps) from DNA references on
+the host or the device, and runs exact-match backward search over large
+read batches on a GPU, bit-exact against the reference CPU baseline
+(src/fmIndexCPUBaseline.c).
 
-Layer map (TPU-native redesign of SURVEY.md section 1):
-  tpufm.index     — host-side index construction (suffix array, k-BWTs,
-                    counters, bitmaps) and layout transforms
-  tpufm.engine    — search engines: NumPy oracle, XLA gather engine,
-                    Pallas TPU kernel
+Layer map (a batched redesign of SURVEY.md section 1):
+  tpufm.index     — index construction (suffix array, k-BWTs, counters,
+                    bitmaps) on host or device, and layout transforms
+  tpufm.engine    — search engines: NumPy oracle, XLA gather engine
   tpufm.parallel  — device mesh / pjit data-parallel + sharded-index search
   tpufm.io        — FASTA / query / result / .fmi file formats
   tpufm.utils     — base encoding, timers, run records

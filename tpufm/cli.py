@@ -54,9 +54,9 @@ def _load_any_index(path: str):
 def cmd_build(args):
     codes = read_reference(args.reference, args.refsize)
     if args.auto:
-        from tpufm.config import recommend_config
+        from tpufm.config import device_bytes_limit, recommend_config
 
-        rec = recommend_config(args.refsize)
+        rec = recommend_config(args.refsize, bytes_limit=device_bytes_limit())
         args.k, args.d = rec["k"], rec["d"]
         print(f"auto config: k={args.k} d={args.d} (recommend lut_m={rec['lut_m']})")
     cfg = IndexConfig(k=args.k, d=args.d)
@@ -353,7 +353,7 @@ def cmd_search(args):
     queries = load_queries(args.queries, args.qrysize, args.numqueries)
     tail = _maybe_tail(args, index)
     engine = _make_engine(index, args, tail_index=tail)
-    out = args.output or f"{args.index}.res.tpu"
+    out = args.output or f"{args.index}.res.gpu"
 
     B = queries.shape[0]
     if getattr(args, "rc", False):
@@ -396,11 +396,11 @@ def _make_engine(index, args, tail_index=None):
     lut_m = getattr(args, "lut", 0)
     mesh_n = getattr(args, "mesh", None)
     sharded = getattr(args, "sharded", False)
-    if tail_index is not None and engine in ("pallas", "xla-ac"):
+    if tail_index is not None and engine == "xla-ac":
         sys.exit(
             "any-length queries (tail index) are supported by --engine "
             "xla/xla-paired (single-chip, --mesh N, or --sharded); pad "
-            "reads to a multiple of k for pallas/xla-ac"
+            "reads to a multiple of k for xla-ac"
         )
 
     if mesh_n is not None or sharded:
@@ -409,8 +409,6 @@ def _make_engine(index, args, tail_index=None):
         # shards the batch data-parallel over N chips (index replicated);
         # --sharded shards the ENTRY TABLE over the mesh for >HBM indexes,
         # with --routing picking the collective plan.
-        if engine == "pallas":
-            sys.exit("--mesh/--sharded support engines xla and xla-ac only")
         from tpufm.parallel import (
             make_mesh,
             DataParallelEngine,
@@ -441,10 +439,6 @@ def _make_engine(index, args, tail_index=None):
             tail_index=tail_index,
         )
 
-    if engine == "pallas":
-        from tpufm.engine.pallas_kernel import PallasEngine
-
-        return PallasEngine(index, lut_m=lut_m)
     if engine == "xla-ac" and isinstance(index, KStepFMIndex):
         index = make_alt_counters(index)
     if engine == "xla-paired":
@@ -1093,7 +1087,7 @@ def _locate_body(args, index, loc, codes, queries, nq):
         )
     elif args.mesh is not None:
         # Multi-chip: batch-sharded search + row-sharded locate walk over
-        # the same mesh (tables replicated — they are small, docs/PERF.md).
+        # the same mesh (tables replicated — they are small).
         from tpufm.parallel import (
             make_mesh,
             DataParallelEngine,
@@ -1182,15 +1176,16 @@ def _sniff_reads(path):
 def cmd_align(args):
     """One-command read aligner: reference FASTA + FASTA/FASTQ reads ->
     SAM v1.6. Sugar over `tpufm locate --sam`: sizes are sniffed from the
-    files and (k, d, LUT) chosen by the measured ladder (recommend_config);
-    any read length works (the locate tables' k=1 LF index finishes the
-    L mod k leftover rounds). The reference suite stops at (L, R) interval
-    counts (common/searchQueries.c:34-132) — this is the production entry
-    point its users would reach for from bwa/bowtie."""
+    files and (k, d, LUT) chosen from the read length and the device's
+    memory (recommend_config); any read length works (the locate tables'
+    k=1 LF index finishes the L mod k leftover rounds). The reference
+    suite stops at (L, R) interval counts (common/searchQueries.c:34-132)
+    — this is the production entry point its users would reach for from
+    bwa/bowtie."""
     import json as _json
     import os
 
-    from tpufm.config import recommend_config
+    from tpufm.config import device_bytes_limit, recommend_config
 
     qmin, qlen, nreads = _sniff_reads(args.reads)
     mixed = qmin != qlen
@@ -1207,10 +1202,12 @@ def cmd_align(args):
         if not os.path.exists(args.reference):
             sys.exit(f"{args.reference}: no such reference FASTA")
         refsize = _fasta_num_bases(args.reference)
-        rec = recommend_config(refsize, query_len=qlen)
+        rec = recommend_config(
+            refsize, query_len=qlen, bytes_limit=device_bytes_limit()
+        )
         # recommend_config drops to k<3 when k does not divide the read
         # length, but the aligner always has the k=1 tail (loc.lf1), so
-        # the measured-best k=3 applies at ANY length.
+        # k=3 applies at ANY length.
         k, d = 3, rec["d"]
     pair_mixed = False
     if args.paired:
@@ -1907,13 +1904,13 @@ def main(argv=None):
     b.add_argument("--k", type=int, default=2)
     b.add_argument("--d", type=int, default=64)
     b.add_argument("--auto", action="store_true",
-                   help="pick the measured-best (k, d) for this refsize")
+                   help="pick (k, d) from the device's memory (recommend_config)")
     b.add_argument("--output", default=None,
                    help=".fmi (reference format), .npz, or .tpufm "
                         "(mmap-able store — instant genome-scale reload)")
     b.add_argument("--sa", default="auto",
                    choices=["auto", "native", "doubling", "device", "sharded"],
-                   help="suffix-sort backend; 'device' sorts on the TPU, "
+                   help="suffix-sort backend; 'device' sorts on the accelerator, "
                         "'sharded' sorts across every local device's HBM")
     b.add_argument("--on-device", action="store_true",
                    help="build the whole index on the accelerator "
@@ -1966,7 +1963,7 @@ def main(argv=None):
     s.add_argument("numqueries", type=int)
     s.add_argument("--iterations", type=int, default=5)
     s.add_argument("--engine", default="xla",
-                   choices=["xla", "xla-ac", "xla-paired", "pallas"])
+                   choices=["xla", "xla-ac", "xla-paired"])
     s.add_argument("--lut", type=int, default=0,
                    help="prefix-LUT length m (collapses the first m chars "
                         "of every query into one gather)")
@@ -2029,7 +2026,8 @@ def main(argv=None):
     be.add_argument("--length", type=int, default=120)
     be.add_argument("--iterations", type=int, default=5)
     be.add_argument("--seed", type=int, default=0)
-    be.add_argument("--engine", default="xla")
+    be.add_argument("--engine", default="xla",
+                    choices=["xla", "xla-split", "xla-ac", "xla-paired"])
     be.add_argument("--lut", type=int, default=None,
                     help="prefix-LUT m (default: none; with --genome, "
                          "recommend_config's pick — pass 0 for LUT-free)")
@@ -2051,7 +2049,7 @@ def main(argv=None):
     be.add_argument("--genome", action="store_true",
                     help="the genome-scale (HBM-regime) record: a real "
                          ">=250 Mbase device-built index (cached under "
-                         ".bench/genome), reference compared at the same "
+                         ".benchcache/genome), reference compared at the same "
                          "size via tpufm's byte-exact .fmi image; k/d/lut "
                          "from recommend_config (--refsize to override "
                          "the 250 Mbase default)")
@@ -2081,7 +2079,7 @@ def main(argv=None):
     sw.add_argument("--ks", type=int, nargs="+", default=[1, 2, 3])
     sw.add_argument("--ds", type=int, nargs="+", default=[64, 128])
     sw.add_argument("--engines", nargs="+", default=["xla"],
-                    help="any of: xla xla-split xla-ac pallas")
+                    choices=["xla", "xla-split", "xla-ac", "xla-paired"])
     sw.add_argument("--luts", nargs="+", type=int, default=[0],
                     help="prefix-LUT m values to sweep (0 = no LUT)")
     sw.add_argument("--numqueries", type=int, default=65536)
@@ -2326,6 +2324,9 @@ def main(argv=None):
     db.set_defaults(fn=cmd_dumpbwt)
 
     args = p.parse_args(argv)
+    from tpufm.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     args.fn(args)
 
 

@@ -108,93 +108,68 @@ class IndexConfig:
         return 4 * (self.bitmap_words + counters)
 
 
-#: Measured MSA/VMEM fast-path boundary (round 3, docs/PERF.md "The
-#: valley, diagnosed"): XLA's memory-space assignment keeps the whole
-#: entries table resident in VMEM — where gathers run ~87M rows/s instead
-#: of ~51-61M from HBM — when the table's PHYSICAL tiled footprint fits
-#: its budget. With T(8,128) tiling every row <= 128 words occupies 512 B,
-#: so the rule is entries <= ~210K AND row words <= 128.
-VMEM_FAST_ENTRIES = 210_000
+#: device-memory working set of one 1M-read search wave beyond the
+#: resident tables: XLA's temp buffers for a k=3 d=192 lut12 wave measured
+#: 0.45 GB on an H100, plus the 126 MB query batch, rounded up
+SEARCH_WAVE_BYTES = 1 << 30
 
-#: Largest reference (bases) whose d=192 HBM program fits one v5e chip
-#: (probe85/86): the gather emitter's windowed table pre-copy doubles
-#: the 1.28x lane-padded entries (100 -> 128 words), so
-#: 2 x (bases/192) x 512 B + ~2.5 GB of loop temps must stay under
-#: 15.75 GB of HBM; past this, d=320's one-tile rows halve the
-#: per-base cost and a 3.2 Gbase genome runs single-chip.
-HBM_MAX_D192_BASES = 2_400_000_000
 
-#: largest reference the 8.6 GB 15-mer LUT co-resides with: LUT + the
-#: gather emitter's 2x working copy of the entries table + ~2.4 GB of
-#: loop temps against 15.75 GB of v5e HBM (docs/PERF.md "The LUT
-#: ladder's last rung"; probe 93a capacity bound)
-LUT15_MAX_BASES = 1_000_000_000
+def device_bytes_limit(device=None) -> int | None:
+    """Bytes the device's allocator may hand out (memory_stats()
+    'bytes_limit'), or None when the device reports no limit (the CPU)."""
+    import jax
+
+    stats = (device or jax.devices()[0]).memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        return None
+    return int(stats["bytes_limit"])
+
+
+def search_bytes(refsize: int, k: int, d: int, lut_m: int) -> int:
+    """Device bytes a single-device search needs: the fused entry table
+    (E+1 rows of entry_bytes), the 4^lut_m x 2 uint32 prefix LUT, and one
+    wave's working set."""
+    cfg = IndexConfig(k=k, d=d)
+    table = (cfg.num_entries(refsize + 1) + 1) * cfg.entry_bytes()
+    lut = 8 * 4**lut_m if lut_m else 0
+    return table + lut + SEARCH_WAVE_BYTES
 
 
 def recommend_config(refsize: int, query_len: int = 120,
-                     serving: bool = False) -> dict:
-    """Measured-best single-chip configuration for a reference of `refsize`
-    bases (TPU v5e numbers, docs/PERF.md).
+                     serving: bool = False,
+                     bytes_limit: int | None = None) -> dict:
+    """Single-device configuration for a reference of `refsize` bases.
 
-    k=3 dominates k in {1,2} (more rounds at the same gather rate) and
-    k in {4,5} (fewer rounds at a third of the rate — the row-width cliff,
-    PERF.md "High-k refutation"). d: the round-4 bracketed ladder
-    (probe79) measured d=192 fastest whenever it fits the VMEM fast path
-    (10 Mbase: 2.24M reads/s vs d=128's 2.11M, d=256's 1.99M, d=320's
-    2.06M), and d=320 next (63M: 2.04M, 69M: 1.96M) — so the preference
-    is 192 (refs <= ~40 Mbase), then 320 (<= ~67 Mbase); d=128/256 are
-    never optimal. d > 320 would exceed 128 row words, doubling the
-    physical footprint (tile padding) and losing VMEM residency. Beyond
-    ~69 Mbase no d fits and throughput is ~940-970K reads/s flat to at
-    least 8M rows / 3.2 GB of entries (tree-pick HBM regime,
-    probes 74/75/85); d=192 is kept there (the sharded-mode layout
-    convention) — up to ~2.4 Gbase. Past that, d=192 cannot FIT one
-    chip: XLA's gather emitter materializes a windowed pre-copy of the
-    whole entries table (probe85/86: copy.28, 1.3x lane-padded, so
-    2 x 1.28 x table bytes + ~2.4 GB of loop temps against 15.75 GB of
-    HBM — OOM at 16.7M rows). d=320's 124-word rows fill one lane tile
-    (1.03x padding), halving the per-base footprint: a full 3.2 Gbase
-    genome runs single-chip at 886K reads/s (probe86, bracketed), so
-    the last rung is d=320 (fits to ~4 Gbase; beyond that, shard over a
-    mesh — parallel/search.py). A 12-mer prefix LUT removes lut_m/k
-    rounds whenever the query length permits.
+    k: the largest of 3, 2, 1 that divides the query length (the fused
+    k-mer round contract). lut_m: the largest m <= 12 with m % k == 0, so
+    the LUT removes lut_m/k rounds whenever the read is long enough.
 
-    lut_m=15 (the next rung: m % k == 0 at k=3) measures +2.4% over
-    m=12 at protocol scale (probe87c, 2.31M vs 2.26M reads/s, bracketed)
-    but costs an 8.6 GB HBM-resident table and a minutes-long device
-    build, so it is NOT recommended by default — opt in explicitly
-    (XLAEngine(lut_m=15) / --lut 15) for sustained serving on small
-    references where the HBM headroom exists (entries + 8.6 GB + ~2.4 GB
-    loop temps must fit 15.75 GB: refs up to ~1 Gbase at d=192).
-
-    serving=True: accept the lut15 trade (8.6 GB HBM + a minutes-long
-    one-time device build for +2.4-2.7% sustained throughput — measured
-    in BOTH regimes, probes 87c/93a/94) whenever it fits and divides the
-    query length; otherwise the default ladder is returned unchanged.
+    d is 192, and moves to 320 only when the d=192 table does not fit
+    `bytes_limit` (search_bytes; d=320's rows cost about half the bytes
+    per base). serving=True opts into the 8.6 GB 15-mer LUT when it
+    divides the query length and fits beside the table. Both are
+    capacity choices: with bytes_limit None (a device that reports no
+    limit) neither is made, and the result is d=192 with lut_m <= 12.
+    The ladder's speed on the GPU is not measured yet.
 
     Returns {'k', 'd', 'lut_m'} kwargs for IndexConfig / XLAEngine.
     """
     # k must divide the query length (the per-round fused k-mer contract,
-    # reference src/fmIndexCPUBaseline.c:200); k=3 is measured-best.
+    # reference src/fmIndexCPUBaseline.c:200).
     k = next((kk for kk in (3, 2, 1) if query_len % kk == 0), 1)
-    bwtsize = refsize + 1
-    d = next(
-        (dd for dd in (192, 320)
-         if -(-bwtsize // dd) <= VMEM_FAST_ENTRIES),
-        192 if bwtsize <= HBM_MAX_D192_BASES else 320,
-    )
     lut_m = 0
     if query_len >= 24:
         # largest m <= 12 with m % k == 0 (then (query_len - m) % k == 0 too)
         lut_m = 12 - (12 % k)
-    if (
-        serving
-        and query_len >= 30
-        and 15 % k == 0
-        # co-residency: 8.6 GB LUT + the gather emitter's 2x working copy
-        # of the entries table must fit 15.75 GB HBM (docs/PERF.md "The
-        # LUT ladder's last rung" + probe 93a's capacity bound)
-        and refsize <= LUT15_MAX_BASES
-    ):
-        lut_m = 15
+    d = 192
+    if bytes_limit is not None:
+        if search_bytes(refsize, k, 192, lut_m) > bytes_limit:
+            d = 320
+        if (
+            serving
+            and query_len >= 30
+            and 15 % k == 0
+            and search_bytes(refsize, k, d, 15) <= bytes_limit
+        ):
+            lut_m = 15
     return {"k": k, "d": d, "lut_m": lut_m}

@@ -5,16 +5,7 @@ __all__ = ["search_oracle", "lf_step_oracle", "XLAEngine", "LocateEngine"]
 
 
 def __getattr__(name):
-    # Heavier engines import lazily (PallasEngine pulls in pallas; the
-    # aligner engines pull in the locate machinery).
-    if name == "PallasEngine":
-        from tpufm.engine.pallas_kernel import PallasEngine
-
-        return PallasEngine
-    if name == "make_dma_gather":
-        from tpufm.engine.dma_gather import make_dma_gather
-
-        return make_dma_gather
+    # The aligner engines import lazily (they pull in the locate machinery).
     if name == "SearchLocateEngine":
         from tpufm.engine.xla import SearchLocateEngine
 

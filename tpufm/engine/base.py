@@ -8,7 +8,6 @@ producing bit-identical SA intervals:
   tpufm.engine.oracle.search_oracle   — NumPy host oracle (the semantics spec)
   tpufm.engine.XLAEngine              — single-device XLA gather engine
                                         (layouts: fused / split / alt-counters)
-  tpufm.engine.pallas_kernel          — Pallas TPU kernels
   tpufm.parallel.DataParallelEngine   — multi-chip, replicated index
   tpufm.parallel.ShardedIndexEngine   — multi-chip, sharded index
 

@@ -4,8 +4,8 @@ a batched multi-word Myers bit-vector verifier.
 The Hamming path (engine/seed.py) verifies candidates with one XOR+popcount
 per window — exact, but substitutions only. Real reads carry indels, and
 the CPU/GPU answer (banded DP with early exit, or backtracking FM search)
-is branchy and data-dependent — the opposite of what the VPU wants. The
-TPU formulation keeps the three dense passes of the seed engine and swaps
+is branchy and data-dependent — the opposite of what wide batched lanes
+want. The batched formulation keeps the three dense passes of the seed engine and swaps
 the verifier for Myers's 1999 bit-parallel algorithm, whose inner loop is
 ~15 word-ops of AND/OR/XOR/ADD/SHIFT per text character — branch-free,
 identical across lanes, and batched over every candidate at once:
@@ -121,8 +121,8 @@ def make_myers_verify_fn(L: int, edits: int, chars: str = "inline"):
         selects per step, zero extra memory);
       "pre" — one vectorized unpack before the scan into a uint8
         [TL, ...] xs array the scan slices (shorter step critical path,
-        TL bytes/candidate of extra HBM traffic). Bit-identical; the
-        better choice is a TPU measurement (probe69)."""
+        TL bytes/candidate of extra HBM traffic). Bit-identical; which is
+        faster on the GPU is not measured."""
     E = edits
     TL = L + 3 * E
     W = -(-L // 32)

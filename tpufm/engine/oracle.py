@@ -1,9 +1,9 @@
-"""NumPy oracle engine — the bit-exactness reference for every TPU engine.
+"""NumPy oracle engine — the bit-exactness reference for every device engine.
 
 Vectorized (over the query batch) port of the semantics of the reference's
 CPU baseline searcher (reference src/fmIndexCPUBaseline.c:157-292) and of the
 alternate-counters searcher (reference src/fmIndexCPUBaseline-AltCounters.c:
-145-310). Every TPU engine in tpufm must produce identical SA intervals.
+145-310). Every device engine in tpufm must produce identical SA intervals.
 
 Backward search: per k-base step, both interval ends (L, R) perform one
 rank/Occ lookup — entry.cnt[kmer] + popcount of kmer matches in the entry's

@@ -8,10 +8,10 @@ PLUS strand places R1 forward at p1 and the reverse complement of R2 at
 p2 with imin <= p2 + L2 - p1 <= imax; the MINUS strand is the mirror
 (rc(R1) at q1, R2 forward at q2, imin <= q1 + L1 - q2 <= imax).
 
-The TPU formulation keeps everything dense: both mates' both strands ride
+The batched formulation keeps everything dense: both mates' both strands ride
 ONE position-engine batch (4B reads — exactly the `--rc` trick twice),
 and pairing is a [H1 x H2] outer comparison per read pair per strand —
-a few hundred VPU ops — followed by the usual in-register cumsum/scatter
+a few hundred elementwise ops — followed by the usual in-register cumsum/scatter
 compaction to max_pairs. No candidate lists, no sorting by chromosome,
 no data-dependent shapes.
 

@@ -4,8 +4,8 @@ The <=1-mismatch path (engine/xla.py make_count_mismatch_fn) expands every
 read into its 3L+1 single-substitution variants and lets them ride the
 batched scan. At m substitutions that expansion is C(L,m)*3^m lanes per read
 (m=2, L=120: ~64K) — hopeless. CPU/GPU FM-index aligners switch to branchy
-backtracking with pruning; on a TPU that is divergence with data-dependent
-shapes. The TPU formulation is the classic pigeonhole filter recast as three
+backtracking with pruning; batched over wide lanes that is divergence with
+data-dependent shapes. The batched formulation is the classic pigeonhole filter recast as three
 dense batched passes inside ONE jit:
 
   1. SEED — any occurrence with <= m substitutions contains at least one of
@@ -20,8 +20,8 @@ dense batched passes inside ONE jit:
      are sorted per read and neighbor-deduplicated in-register (two seeds
      of the same occurrence yield the same start).
   3. VERIFY — every candidate gathers its L-base window from the 2-bit
-     packed text and compares against the read with XOR + popcount on the
-     VPU: mismatched base <=> either bit of its 2-bit code differs, so
+     packed text and compares against the read with XOR + popcount:
+     mismatched base <=> either bit of its 2-bit code differs, so
      dist = popcount((x | x>>1) & 0x5555...) over ceil(L/16) words — a
      branch-free Hamming distance, one gather + a handful of word ops per
      candidate.

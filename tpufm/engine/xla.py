@@ -1,15 +1,15 @@
-"""XLA gather-based TPU search engine.
+"""XLA gather-based search engine.
 
 The whole query batch advances one fused k-step LF round at a time: per
 round, both interval ends of every read do one gather from the Occ/bitmap
 tables plus a vectorized mask/popcount — the batch dimension is the parallel
-axis (the TPU formulation of the reference's one-thread-per-interval GPU
+axis (the batched form of the reference's one-thread-per-interval GPU
 mapping, src/fmIndexGPU-Task-1Step.cu:111-183). The per-read dependent chain
 of length len/k lives in a lax.scan.
 
-This engine is pure jnp (XLA gathers), runs on TPU/CPU/GPU identically, and
-is the correctness anchor for the Pallas kernel. Bit-exact vs
-tpufm.engine.oracle, which is bit-exact vs the reference CPU baseline.
+This engine is pure jnp (XLA gathers) and runs identically on the GPU and
+the CPU. Bit-exact vs tpufm.engine.oracle, which is bit-exact vs the
+reference CPU baseline.
 """
 
 from __future__ import annotations
@@ -60,12 +60,9 @@ def _pick_counter(counters, code, k: int):
     counters uint32 [..., 4^k]; code uint32 broadcastable to
     counters.shape[:-1]. Binary-tree select: 2k levels of halving
     where()s driven by one code bit each — O(4^k) total lane-selects but
-    every level is a full-width VPU select with no iota compares or lane
-    sums. Measured fastest of four formulations on v5e (probe63, flagship
-    k=3 d=128 lut12): tree 2.11M reads/s vs two-stage one-hot 1.83M vs
-    jnp.take_along_axis 1.22M (the take lowers to a SECOND serialized
-    device gather costing 420 of the 879 ms fast-regime pass — probe52
-    trace, docs/PERF.md "The counter pick, solved").
+    every level is a full-width elementwise select with no iota compares
+    or lane sums, and no second dependent gather (a take_along_axis pick
+    lowers to one).
     """
     c = counters
     code = jnp.broadcast_to(code, counters.shape[:-1])
@@ -77,15 +74,13 @@ def _pick_counter(counters, code, k: int):
     return c[..., 0]
 
 
-def lf_step_fused(tables: dict, cfg: tuple, interval, code, gather_fn=None):
+def lf_step_fused(tables: dict, cfg: tuple, interval, code):
     """Fused-row k-step LF for both interval ends at once.
 
-    TPU-native layout choice: measurement on v5e shows XLA row gathers are
-    issue-bound, not bandwidth-bound — gathering a 96 B fused row costs the
-    same as a 4 B counter, so bitmaps and all 4^k counters live in ONE row
-    per entry and each interval end does exactly one gather per round (the
-    split layout does two). The counter is then selected in-register from the
-    gathered row. Both ends are stacked into a single gather of 2B indices.
+    Bitmaps and all 4^k counters live in ONE row per entry, so each
+    interval end does exactly one gather per round (the split layout does
+    two); the counter is then selected in-register from the gathered row.
+    Both ends are stacked into a single gather of 2B indices.
 
     tables: {'entries': uint32 [E+1, 2k*nb + 4^k] (bitmap words then
              counters, the same word order as the reference tag-100 entry,
@@ -96,15 +91,9 @@ def lf_step_fused(tables: dict, cfg: tuple, interval, code, gather_fn=None):
     k, d, nb = cfg
     bmw = 2 * k * nb
     block = interval // _U32(d)
-    if gather_fn is None:
-        rows = tables["entries"][block]  # [B, 2, W] — the only HBM gather
-    else:
-        # Pallas-owned DMA gather (engine/dma_gather.py): flat [2B] row
-        # stream, reshaped back to both ends.
-        flat = gather_fn(tables["entries"], block.reshape(-1))
-        rows = flat.reshape(block.shape + (flat.shape[-1],))
+    rows = tables["entries"][block]  # [B, 2, W] — the only HBM gather
     bm_rows = rows[..., :bmw].reshape(rows.shape[:-1] + (k, 2, nb))
-    # Slice exactly 4^k counters: gather_fn rows may carry alignment padding.
+    # Slice exactly 4^k counters: rows may carry pad_words padding.
     cnt = _pick_counter(rows[..., bmw : bmw + 4**k], code[:, None], k)
 
     masks = _boundary_masks(interval % _U32(d), nb)
@@ -133,18 +122,15 @@ def lf_step_paired(tables: dict, cfg: tuple, interval, code):
     is lo's block or the next one. tables['entries_paired'][i] carries rows
     i and i+1 of the fused table side by side ([E+1, 2W]); the round
     gathers the pair at lo's block and selects hi's row in-register,
-    halving gather issues (the measured cost unit, docs/PERF.md).
+    halving gather issues.
 
     Lanes where hi_block - lo_block > 1 (wide intervals — repeat-rich
     patterns) get garbage hi values; the second return is their validity
     mask, and the engine re-searches invalid lanes on the standard path
     (XLAEngine.search, repair wave) — bit-exactness is unconditional.
 
-    Measured outcome (docs/PERF.md "Paired-row layout: measured
-    refutation"): the wider slice + in-register select drops the program
-    off the MSA/VMEM fast path, so halving gather issues loses to a 3x
-    per-issue slowdown (k=3: 690K vs 1.21M; k=2: 519K vs 901K reads/s).
-    Kept as a tested design point, not a recommended engine.
+    Kept as a tested design point, not the default engine; its speed
+    against lf_step_fused on the GPU is not measured.
     """
     k, d, nb = cfg
     W = 2 * k * nb + 4**k
@@ -184,7 +170,7 @@ def lf_step_split(tables: dict, cfg: tuple, interval, code):
     a fused row carries all 4^k counters (1 KB at k=4/d=128), while the
     split bitmap row is just 2k*nb words (128 B), so when the gather issue
     rate is width-insensitive the fused row wins, and when width starts to
-    bite the split row wins. Measured head-to-head in docs/PERF.md.
+    bite the split row wins.
 
     tables: {'occ': [E+1, 4^k], 'bitmaps': [E+1, k, 2, nb], dollar_*}
     cfg: (k, d, nb) static; interval: uint32 [B, 2]; code: uint32 [B].
@@ -314,14 +300,13 @@ def make_search_varlen_fn(
     d: int,
     lut_m: int = 0,
     tail_d: int | None = None,
-    gather_fn=None,
 ):
     """Jittable VARIABLE-length batch search (fused layout).
 
     queries: uint8 [B, Lp] reads RIGHT-ALIGNED (left-padded with
     VARLEN_PAD = 0xFF); each read's length is derived in-program as its
     non-pad count. One fixed program serves every mix of lengths <= Lp —
-    the TPU answer to shape-polymorphic read sets (real FASTQ runs mix
+    the static-shape answer to shape-polymorphic read sets (real FASTQ runs mix
     lengths after adapter trimming): no per-length recompiles, no
     bucketing. Because reads are right-aligned, backward search (which
     consumes characters from the END, reference
@@ -364,7 +349,7 @@ def make_search_varlen_fn(
 
             def body(iv, xj):
                 code, j = xj
-                iv2 = lf_step_fused(tables, cfg, iv, code, gather_fn)
+                iv2 = lf_step_fused(tables, cfg, iv, code)
                 keep = (j + 1) * k <= M
                 return jnp.where(keep[:, None], iv2, iv), None
 
@@ -398,7 +383,6 @@ def make_search_fn(
     alt_counters: bool = False,
     layout: str = "fused",
     lut_m: int = 0,
-    gather_fn=None,
     tail_d: int | None = None,
 ):
     """Build the jittable batch search: (tables, bwtsize, queries) -> [B, 2].
@@ -406,8 +390,7 @@ def make_search_fn(
     layout="fused" (default): single-table single-gather rounds via
     lf_step_fused. layout="split": separate occ/bitmap gathers with both
     ends stacked (lf_step_split) — the better trade once 4^k counters
-    dominate the fused row width (measured crossover in docs/PERF.md);
-    also the only layout for the alternate-counters tables (per-end walk).
+    dominate the fused row width; also the only layout for the alternate-counters tables (per-end walk).
 
     lut_m > 0 (fused or split): tables must hold 'lut' uint32 [4^lut_m, 2] — the
     precomputed SA interval of every lut_m-mer. The first lut_m characters of
@@ -505,7 +488,7 @@ def make_search_fn(
     cfg = (k, d, nb)
     if layout == "fused":
         def step(tables, iv, code):
-            return lf_step_fused(tables, cfg, iv, code, gather_fn)
+            return lf_step_fused(tables, cfg, iv, code)
     else:
         def step(tables, iv, code):
             return lf_step_split(tables, cfg, iv, code)
@@ -559,7 +542,6 @@ class XLAEngine:
         pad_words: int | None = None,
         lut_m: int = 0,
         lut_cache: str | None = None,
-        gather: str = "xla",
         tail_index: KStepFMIndex | None = None,
     ):
         """tail_index: a k=1 index over the SAME text (any d) enabling
@@ -568,20 +550,12 @@ class XLAEngine:
         IndexConfig(k=1) or `tpufm build --tail`.
 
         pad_words: pad each fused entry row to this many uint32 words
-        (e.g. 128 = 512 B rows). Measured on TPU v5e, the XLA gather hits a
-        fast path for some (rows, width) shapes and a ~1.7x slower one for
-        others; padding to a 512 B row flips slow shapes to the fast path at
-        the cost of extra gathered bytes (see docs/PERF.md).
+        (e.g. 128 = 512 B rows), trading extra gathered bytes for an
+        aligned row; whether that pays on the GPU is not measured.
 
         lut_m: precompute a 4^lut_m x 2 interval LUT on device (one batched
         backward-search of every lut_m-mer, built with this same engine) and
         start every query lut_m characters in — eliminating lut_m/k rounds.
-
-        gather: "xla" (default — the XLA gather runtime, fastest measured) or
-        "dma" (the Pallas per-row async-copy gather, engine/dma_gather.py —
-        issue-rate bound at ~19M rows/s on v5e, kept for evidence and as the
-        sharded-routing building block). "dma" pads rows to a 128-word
-        multiple (the DMA alignment requirement).
         """
         if isinstance(index, AltCountersIndex):
             base = index.base
@@ -606,24 +580,8 @@ class XLAEngine:
             "dollar_base": put(base.dollar_base),
             "dollar_block": put(np.asarray(base.dollar_block, dtype=np.uint32)),
         }
-        if gather not in ("xla", "dma"):
-            raise ValueError(f"unknown gather {gather!r} (use 'xla' or 'dma')")
-        gather_fn = None
-        if gather == "dma":
-            if layout != "fused":
-                raise ValueError("gather='dma' requires the fused layout")
-            w = 2 * base.config.k * (base.config.d // 32) + base.config.num_counters
-            pad_words = max(pad_words or 0, -(-w // 128) * 128)
         if layout == "fused":
             tables["entries"] = put(build_fused_entries(base, pad_words))
-            if gather == "dma":
-                from tpufm.engine.dma_gather import make_dma_gather
-
-                gather_fn = make_dma_gather(
-                    tables["entries"].shape[0],
-                    tables["entries"].shape[1],
-                    interpret=jax.default_backend() == "cpu",
-                )
         elif layout == "paired":
             # The paired table [E+1, 2W] (row i = fused rows i||i+1) serves
             # the hot path; the standard fused table stays resident for the
@@ -668,7 +626,6 @@ class XLAEngine:
                 layout="fused" if layout == "paired" else layout,
             )
 
-        self._gather_fn = gather_fn
         self._search = jax.jit(
             make_search_fn(
                 self.config.k,
@@ -676,7 +633,6 @@ class XLAEngine:
                 self.alt_counters,
                 layout=layout,
                 lut_m=lut_m,
-                gather_fn=gather_fn,
                 tail_d=self.tail_d,
             )
         )
@@ -687,16 +643,15 @@ class XLAEngine:
             layout=self.layout,
         )
 
-    #: reads per device wave: measured flagship throughput peaks at 1M reads
-    #: (1.22M reads/s vs 1.18M at 512K) and collapses at 2M (717K — the
-    #: row-gather lowering degrades); per-round transients stay ~700 MB
+    #: reads per device wave: per-round transients stay ~700 MB at the
+    #: k=3 d=192 row width; the best wave on the GPU is not measured
     WAVE = 1 << 20
 
     def search(self, queries, wave: int | None = None) -> np.ndarray:
         """queries: uint8 [B, L] 2-bit codes. Returns uint32 [B, 2].
 
         Batches larger than `wave` are processed in device-sized waves (the
-        TPU analog of the reference streaming 10M reads through a fixed
+        batched analog of the reference streaming 10M reads through a fixed
         thread pool, common/searchQueries.c:84-95) — each wave is one jit
         call, so arbitrarily large read sets run in constant device memory.
 
@@ -733,8 +688,7 @@ class XLAEngine:
             return iv
         # Pipelined waves (depth 3): dispatches are async, so keeping several
         # in flight overlaps host->device query staging and device->host
-        # result drain with the previous waves' compute (2x end-to-end on
-        # hosts with slow DMA paths; free on fast ones).
+        # result drain with the previous waves' compute.
         return stream_waves(
             queries,
             wave,
@@ -779,7 +733,6 @@ class XLAEngine:
                     self.config.d,
                     lut_m=self.lut_m,
                     tail_d=self.tail_d,
-                    gather_fn=self._gather_fn,
                 )
             )
         from tpufm.utils.waves import stream_waves
@@ -850,7 +803,6 @@ class XLAEngine:
                 self.alt_counters,
                 layout=self.layout,
                 lut_m=self.lut_m,
-                gather_fn=self._gather_fn,
                 tail_d=self.tail_d,
             )
 
@@ -893,7 +845,7 @@ class XLAEngine:
                 )
             )
         # each read fans out to 3L+1 device lanes — shrink the wave so the
-        # device batch stays at the measured 1M-lane optimum
+        # device batch stays at WAVE lanes
         wave = wave or max(1, self.WAVE // (3 * L + 1))
         return stream_waves(
             queries,
@@ -947,8 +899,8 @@ def make_count_mismatch_fn(
     """Jittable Hamming-distance<=1 counting: (tables, bwtsize, queries
     [W, L]) -> counts uint32 [W].
 
-    TPU formulation of approximate matching: instead of the branchy
-    backtracking FM-search CPUs/GPUs use, every read expands to its 3L+1
+    Batched formulation of approximate matching: instead of the branchy
+    backtracking FM-search, every read expands to its 3L+1
     single-substitution variants ON DEVICE and they ride the ordinary
     batched scan as 3L+1 extra batch lanes — no divergence, full
     sensitivity, no candidate caps. The cost is an honest (3L+1)x the
@@ -974,17 +926,15 @@ def make_locate_fn(d: int, sample_rate: int):
     fused locate row (mark bits + mark rank + LF1 entry) and either resolves
     against the sample table or takes one single-step LF hop. Lanes finish
     independently; finished lanes idle (masked) until the fixed trip count
-    ends — the TPU formulation of the classic sampled-SA walk.
+    ends — the batched formulation of the classic sampled-SA walk.
     """
     nb = d // 32
     bmw = 2 * nb  # k=1 bitmap words
 
     def _onehot_pick(mat, idx):
-        """mat [N, W], idx [N] -> mat[i, idx[i]] via one-hot sum — in-register
-        VPU select. A take_along_axis here lowers to ANOTHER device gather,
-        and dependent gathers serialize (measured: replacing the four
-        take_along_axis of the original body with one-hot picks took the
-        walk from 392K to >1M positions/s, docs/PERF.md)."""
+        """mat [N, W], idx [N] -> mat[i, idx[i]] via one-hot sum — an
+        in-register select. A take_along_axis here lowers to ANOTHER device
+        gather, and dependent gathers serialize."""
         col = jax.lax.broadcasted_iota(jnp.int32, mat.shape, 1)
         return jnp.sum(
             jnp.where(col == idx.astype(jnp.int32)[:, None], mat, _U32(0)),
@@ -994,7 +944,7 @@ def make_locate_fn(d: int, sample_rate: int):
     def locate(tables, rows):
         # ONE fused row per block: LF1 bitmaps | LF1 counters | mark words |
         # mark rank — a single gather per walk iteration (two separate
-        # gathers serialize, measured 2x slower).
+        # gathers would serialize).
         fused_t = tables["locate_rows"]  # [E+1, 2*nb + 4 + nb + 1]
         samples = tables["samples"]      # [n_sampled]
         dpos = tables["dollar_pos"]    # [1]
@@ -1062,7 +1012,8 @@ def make_locate_fn(d: int, sample_rate: int):
 
 
 class LocateEngine:
-    """Device-resident sampled-SA locate (tpufm extension, docs/ROADMAP.md).
+    """Device-resident sampled-SA locate (a tpufm extension; the reference
+    has no locate).
 
     Resolves BWT rows (or whole search intervals) to text positions using the
     tables built by tpufm.index.locate.build_locate."""
@@ -1259,8 +1210,8 @@ class SearchLocateEngine:
     transfers every interval to the host and re-dispatches the hit rows; the
     fused program keeps the whole flow device-resident — the search scan's
     output intervals expand to their first max_hits BWT rows in-register and
-    feed the sampled-SA walk inside the same jit (docs/ROADMAP.md "locate
-    fusion"; the reference has no locate at all).
+    feed the sampled-SA walk inside the same jit (the reference has no
+    locate at all).
 
     Bit-exact vs the two-pass path by construction (same search scan, same
     walk, same expand semantics as tpufm.index.locate.expand_intervals).
@@ -1419,8 +1370,7 @@ def build_fused_entries(base: KStepFMIndex, pad_words: int | None = None):
 
 
 #: largest prefix LUT the npz cache will persist (m<=12 qualifies; the
-#: m=15 serving LUT — 8.6 GB, measured +2.4% at protocol scale, probe87c
-#: — is rebuilt on device instead)
+#: 8.6 GB m=15 LUT is rebuilt on device instead)
 LUT_CACHE_MAX_BYTES = 512 * 1024 * 1024
 
 

@@ -1,7 +1,7 @@
 """k-step FM-index construction (host side).
 
 Builds the same logical index as the reference's gfmiBaseLine binaries
-(reference src/genFMindex.c:457-543) but TPU-first:
+(reference src/genFMindex.c:457-543) but accelerator-first:
 
 * The k BWT levels are derived **directly from the suffix array** with
   vectorized gathers — BWT_i[j] = T[(SA[j] - 1 - i) mod N] — instead of the
@@ -12,8 +12,8 @@ Builds the same logical index as the reference's gfmiBaseLine binaries
 
 * The index is a structure-of-arrays pytree of uint32 arrays (not an
   array-of-structs entry table): `occ[nentries+1, 4^k]` counters and
-  `bitmaps[nentries+1, k, 2, d/32]` bit-planes. SoA is what XLA and Pallas
-  want; the reference's interleaved AoS entry (src/genFMindex.c:42-45) was a
+  `bitmaps[nentries+1, k, 2, d/32]` bit-planes. SoA is what XLA
+  wants; the reference's interleaved AoS entry (src/genFMindex.c:42-45) was a
   cache-line artifact and is kept only as an on-disk packing
   (tpufm/index/formats.py).
 

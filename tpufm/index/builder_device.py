@@ -3,7 +3,7 @@
 The reference builds its index entirely on the host (a 10 h SLURM envelope
 at 1.5 Gbase, reference scripts/slurm_genindexes.sh:27, with only the suffix
 sort OpenMP-parallel); tpufm's host builder (tpufm/index/builder.py) already
-cuts that to minutes. This module moves the whole pipeline onto the TPU:
+cuts that to minutes. This module moves the whole pipeline onto the device:
 
   suffix array     — parallel prefix doubling (tpufm/index/sa_device.py)
   k BWT levels     — k device gathers  BWT_i[j] = T[(SA[j] - 1 - i) mod N]
@@ -29,7 +29,7 @@ import numpy as np
 
 from tpufm.config import IndexConfig
 from tpufm.index.builder import KStepFMIndex, normalize_reference
-from tpufm.index.sa_device import MAX_DEVICE_BASES, suffix_array_device_arr
+from tpufm.index.sa_device import check_device_build_fits, suffix_array_device_arr
 
 
 def _build_tables(k: int, d: int):
@@ -127,11 +127,7 @@ def build_index_device(
     codes = normalize_reference(reference)
     k, d = config.k, config.d
     n = int(codes.shape[0])
-    if n > MAX_DEVICE_BASES:
-        raise ValueError(
-            f"{n} bases exceeds the device build limit ({MAX_DEVICE_BASES}); "
-            "use tpufm.index.builder.build_index (host)"
-        )
+    check_device_build_fits(n, device)
     big = n + 1
     C = config.num_counters
     E = config.num_entries(big)

@@ -1,7 +1,8 @@
 """k-step FM-index construction sharded over a device mesh.
 
-build_index_device (single chip) holds the full suffix-sort working set
-plus all k BWT levels and both output tables in one HBM — ~400 Mbase cap.
+build_index_device (single device) holds the full suffix-sort working set
+plus all k BWT levels and both output tables in one device's memory, which
+caps the text it can build (check_device_build_fits).
 This pipeline shards every O(n) stage along a 1-D mesh:
 
   suffix array — distributed prefix doubling (tpufm/index/sa_sharded.py)
@@ -47,8 +48,6 @@ def _table_program(mesh, axis: str, k: int, d: int, m: int, big: int):
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
-
-    from tpufm.index.sa_sharded import _shard_map
 
     u32 = jnp.uint32
     lax = jax.lax
@@ -191,11 +190,7 @@ def _table_program(mesh, axis: str, k: int, d: int, m: int, big: int):
     kw = dict(
         mesh=mesh, in_specs=(spec, P()), out_specs=(spec, P(), spec, P(), P())
     )
-    try:
-        smapped = _shard_map()(fn, check_vma=False, **kw)
-    except TypeError:  # older JAX: the flag was named check_rep
-        smapped = _shard_map()(fn, check_rep=False, **kw)
-    return jax.jit(smapped)
+    return jax.jit(jax.shard_map(fn, check_vma=False, **kw))
 
 
 def build_index_sharded(
@@ -320,7 +315,7 @@ def _locate_program(mesh, axis: str, d: int, m: int, big: int, s: int):
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    from tpufm.index.sa_sharded import _shard_map, make_global_sort
+    from tpufm.index.sa_sharded import make_global_sort
 
     u32 = jnp.uint32
     lax = jax.lax
@@ -352,7 +347,7 @@ def _locate_program(mesh, axis: str, d: int, m: int, big: int, s: int):
 
     spec = P(axis)
     return jax.jit(
-        _shard_map()(
+        jax.shard_map(
             fn, mesh=mesh, in_specs=(spec,), out_specs=(spec, spec, spec)
         )
     )

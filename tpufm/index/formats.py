@@ -13,7 +13,7 @@
    bitmaps (transformIndexAlternateCounters.c:48-51). All little-endian.
 
 2. A native `.tpufm.npz` format holding the SoA arrays directly (the
-   persistence layer for TPU runs; the reference's index files ARE its
+   persistence layer for device runs; the reference's index files ARE its
    checkpointing story, SURVEY.md section 5).
 """
 
@@ -216,7 +216,7 @@ def read_fmi(path) -> tuple[KStepFMIndex, Layout]:
 
 
 def save_npz(path, index: KStepFMIndex) -> None:
-    """Native SoA persistence (TPU-side checkpoint of the built index)."""
+    """Native SoA persistence (checkpoint of the built index)."""
     np.savez_compressed(
         path,
         version=np.int32(1),

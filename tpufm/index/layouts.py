@@ -8,7 +8,7 @@ are first-class packings of the same logical arrays:
   one aligned 16-byte vector holds all 2k planes of a 32-base window. For the
   SoA arrays this is a pure transpose (see interleave_bitmap_words); engines
   consume the logical [k, 2, nb] axes either way, so the transform only
-  matters for byte-exact .fmi file export and for packed Pallas layouts.
+  matters for byte-exact .fmi file export.
 
 * alternate counters (reference src/transformIndexAlternateCounters.c:
   434-479, tags 200/201): halves counter storage. Entry e stores counters

@@ -1,18 +1,20 @@
 """Suffix array construction sharded over a device mesh.
 
-The single-chip device path (tpufm/index/sa_device.py) holds ~24 bytes/base
-of sort working set, capping on-device construction near 400 Mbase of HBM.
-This module shards every prefix-doubling array along a 1-D mesh so the
-working set splits across chips: N chips build an N-times-larger text on
-device (the reference's analog is OpenMP threads inside one node's
-divsufsort, resources/divsufsort.c:95-123 — it has no multi-node build).
+The single-device path (tpufm/index/sa_device.py) holds
+DEVICE_BUILD_BYTES_PER_BASE bytes/base of sort working set, which caps the
+text one device can build. This module shards every prefix-doubling array
+along a 1-D mesh so the working set splits across devices: N devices
+build an N-times-larger text (the reference's analog is OpenMP threads
+inside one node's divsufsort, resources/divsufsort.c:95-123 — it has no
+multi-node build).
 
 Formulation (all inside shard_map over axis "data"):
 
-- **Global sort** = local `lax.sort` per shard + `P` unrolled rounds of
-  odd-even block transposition: each round pairs neighboring shards,
-  exchanges them with `ppermute` (pure ICI traffic), merge-splits (sort of
-  the 2m concat, keep low/high half). With sorted blocks this sorts any
+- **Global sort** = local sort per shard (sa_device.lex_sort: radix-sortable
+  single-key passes) + `P` unrolled rounds of odd-even block
+  transposition: each round pairs neighboring shards, exchanges them with
+  `ppermute` (device-link traffic only), merge-splits (sort of the 2m
+  concat, keep low/high half). With sorted blocks this sorts any
   input in P rounds (0-1 principle on the block odd-even network).
 - **Rank assignment** = global adjacent-difference (1-element boundary
   ppermute) + global cumsum (local cumsum + all_gather of shard totals).
@@ -48,18 +50,8 @@ def _cache_put(cache: dict, key, value):
         cache.pop(next(iter(cache)))
 
 
-def _shard_map():
-    import jax
-
-    if hasattr(jax, "shard_map"):
-        return jax.shard_map
-    from jax.experimental.shard_map import shard_map
-
-    return shard_map
-
-
 def make_global_sort(axis: str, nsh: int, m: int):
-    """Shard-level global sort over a 1-D mesh axis: local `lax.sort` plus
+    """Shard-level global sort over a 1-D mesh axis: local lex_sort plus
     nsh rounds of odd-even block transposition (ppermute shard exchange +
     merge-split). Takes/returns tuples of [m] per-shard arrays; the first
     num_keys arrays are the (unique-total-order) sort keys, the rest ride
@@ -67,6 +59,8 @@ def make_global_sort(axis: str, nsh: int, m: int):
     sample compaction."""
     import jax
     import jax.numpy as jnp
+
+    from tpufm.index.sa_device import lex_sort
 
     lax = jax.lax
 
@@ -91,7 +85,7 @@ def make_global_sort(axis: str, nsh: int, m: int):
         part = jnp.asarray(partner, dtype=jnp.int32)[myid]
         recv = [lax.ppermute(x, axis, perm) for x in arrs]
         both = [jnp.concatenate([x, r]) for x, r in zip(arrs, recv)]
-        merged = lax.sort(tuple(both), num_keys=num_keys, is_stable=False)
+        merged = lex_sort(both, num_keys)
         am_low = myid.astype(jnp.int32) < part
         self_paired = myid.astype(jnp.int32) == part
         out = []
@@ -101,7 +95,7 @@ def make_global_sort(axis: str, nsh: int, m: int):
         return tuple(out)
 
     def global_sort(arrs, num_keys):
-        arrs = lax.sort(tuple(arrs), num_keys=num_keys, is_stable=False)
+        arrs = lex_sort(arrs, num_keys)
         for r in range(nsh):
             arrs = transpose_round(r % 2, arrs, num_keys)
         return arrs
@@ -203,11 +197,9 @@ def _programs(mesh, axis: str, m: int, big: int):
         _, new_rank = restore_index_order(sidx, rank_sorted)
         return new_rank, sidx, distinct
 
-    smap = _shard_map()
-
     def wrap(f, n_in):
         return jax.jit(
-            smap(
+            jax.shard_map(
                 f,
                 mesh=mesh,
                 in_specs=(spec,) * n_in,

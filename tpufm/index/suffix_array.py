@@ -133,10 +133,10 @@ def suffix_array(codes: np.ndarray, method: str = "auto") -> np.ndarray:
 
     method: "auto" (native if available, else doubling), "native",
     "doubling", "naive", "device" (parallel prefix doubling ON the
-    accelerator — tpufm/index/sa_device.py, the TPU-native counterpart of
+    accelerator — tpufm/index/sa_device.py, the device counterpart of
     the reference's OpenMP-parallel suffix sort), or "sharded" (the same
-    doubling sharded over every local device's HBM —
-    tpufm/index/sa_sharded.py, for texts past one chip's ~400 Mbase cap).
+    doubling sharded over every local device's memory —
+    tpufm/index/sa_sharded.py, for texts past one device's capacity).
     """
     codes = np.asarray(codes, dtype=np.uint8)
     if method == "auto":

@@ -7,8 +7,8 @@
 * load_queries mirrors loadQueries without warp interleaving (reference
   common/common.c:132-199): every non-header line is one read of exactly
   `query_len` characters. (The reference's GPU-only warp interleaving of
-  query words is a CUDA coalescing artifact with no TPU equivalent — the
-  TPU engines take a dense [batch, len] uint8 array.)
+  query words is a CUDA coalescing artifact the XLA engines do not need —
+  they take a dense [batch, len] uint8 array.)
 """
 
 from __future__ import annotations

@@ -156,8 +156,8 @@ def sam_single_records(
     )
     # Everything array-shaped happens in vectorized passes up front; the
     # per-read loop below touches only Python lists and strings. This is
-    # the aligner's host bottleneck: the per-read numpy version measured
-    # 35K reads/s (28 s per million reads vs the chip's 0.45 s).
+    # the aligner's host bottleneck: per-read numpy calls cost far more
+    # than the device search they follow.
     idx_f, off_f, sp_f = cmap.resolve(pos_fwd, query_len=Ls[:, None])
     idx_r, off_r, sp_r = cmap.resolve(pos_rc, query_len=Ls[:, None])
     # batch ASCII: one decode for all forward suffixes, one for all

@@ -22,7 +22,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from tpufm.engine.xla import build_locate_tables, make_locate_fn
-from tpufm.parallel.search import _shard_map, put_global
+from tpufm.parallel.search import put_global
 
 
 def _smap(fn, **kw):
@@ -30,10 +30,7 @@ def _smap(fn, **kw):
     replicated inputs (tables, bwtsize) into per-shard carries, which the
     VMA checker rejects even though the computation is shard-local (same
     pattern as index/builder_sharded.py)."""
-    try:
-        return _shard_map()(fn, check_vma=False, **kw)
-    except TypeError:  # older JAX: the flag was named check_rep
-        return _shard_map()(fn, check_rep=False, **kw)
+    return jax.shard_map(fn, check_vma=False, **kw)
 
 
 class DataParallelLocate:

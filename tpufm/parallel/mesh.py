@@ -1,7 +1,7 @@
 """Device mesh construction for multi-chip / multi-host search.
 
 The reference has no distributed layer at all (SURVEY.md section 2:
-cluster scripts only schedule independent single-node jobs). The TPU-native
+cluster scripts only schedule independent single-node jobs). The
 scaling design (BASELINE.md): a 1-D data mesh; the query batch is sharded
 across chips, the index tables are replicated when they fit in HBM
 (DataParallelEngine) or sharded along the entry axis with collective lookup
@@ -28,8 +28,8 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "data") -> Mesh:
 def initialize_distributed(coordinator: str | None = None, **kwargs) -> None:
     """Multi-host bring-up: jax.distributed.initialize passthrough.
 
-    On a multi-host TPU slice call this once per host before make_mesh();
-    jax.devices() then spans the whole slice and the same pjit program runs
+    On a multi-host cluster call this once per host before make_mesh();
+    jax.devices() then spans every host and the same pjit program runs
     SPMD across hosts (the tpufm replacement for the reference's SGE/SLURM
     job arrays)."""
     if coordinator is not None:

@@ -3,15 +3,15 @@
 DataParallelEngine — index tables replicated per chip, query batch sharded
 along the batch axis of a 1-D mesh; the jitted program is pure SPMD data
 parallelism and the per-read (lo, hi) results are merged with one all-gather
-at the end (8 bytes per read over ICI). This is the scaling mode for indexes
+at the end (8 bytes per read over the device links). This is the scaling mode for indexes
 that fit in HBM (human genome @ k=2, d=64 is ~3.2 GB).
 
 ShardedIndexEngine — for indexes exceeding a chip's HBM: the entry table is
 sharded along the block axis; every LF round, each chip all-gathers the
 (block, code, interval) requests of all chips (12 B per interval end),
 answers the ones whose entry lives in its shard, and a psum combines the
-partial answers. Collectives ride ICI; compute stays the same VPU
-mask/popcount. (The reference has no counterpart — its cluster scripts run
+partial answers. Collectives ride the device links (NVLink, all to all,
+on a GPU host); compute stays the same mask/popcount. (The reference has no counterpart — its cluster scripts run
 independent processes; SURVEY.md section 5 'distributed communication
 backend: none'.)
 """
@@ -35,21 +35,6 @@ from tpufm.index.builder import KStepFMIndex
 from tpufm.index.layouts import AltCountersIndex
 
 _U32 = jnp.uint32
-
-
-def _pvary(x, axis):
-    """Mark x device-varying along a mesh axis (API moved across JAX 0.8/0.9)."""
-    if hasattr(jax.lax, "pcast"):
-        return jax.lax.pcast(x, axis, to="varying")
-    return jax.lax.pvary(x, (axis,))
-
-
-def _shard_map():
-    if hasattr(jax, "shard_map"):
-        return jax.shard_map
-    from jax.experimental.shard_map import shard_map
-
-    return shard_map
 
 
 def put_global(x, sharding):
@@ -644,8 +629,8 @@ class ShardedIndexEngine:
                 else:
                     codes = fuse_round_codes(queries, k)
                     # The carry is device-varying inside shard_map; mark it so.
-                    lo0 = _pvary(jnp.zeros(B, dtype=_U32), axis)
-                    hi0 = _pvary(jnp.full(B, bwtsize, dtype=_U32), axis)
+                    lo0 = jax.lax.pcast(jnp.zeros(B, dtype=_U32), axis, to="varying")
+                    hi0 = jax.lax.pcast(jnp.full(B, bwtsize, dtype=_U32), axis, to="varying")
 
                 def body(carry, code):
                     # Stack both interval ends into ONE request block per
@@ -685,7 +670,7 @@ class ShardedIndexEngine:
             # device_get on a P(axis)-sharded output would span
             # non-addressable devices under multi-process jax.distributed.
             return jax.jit(
-                _shard_map()(
+                jax.shard_map(
                     search_local,
                     mesh=mesh,
                     in_specs=(

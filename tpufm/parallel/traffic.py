@@ -24,7 +24,7 @@ def collective_bytes_model(routing: str, n_devices: int,
     """Per-LF-round collective payload bytes per chip, by routing
     (docs/DISTRIBUTED.md). Returns {"sent": ..., "received": ...,
     "answered_rows": ...} — `sent` counts bytes leaving the chip per
-    round (the ICI budget), `answered_rows` the rank lookups the chip
+    round (the link budget), `answered_rows` the rank lookups the chip
     must compute (the D-fold compute overhead allgather/ring pay and
     a2a avoids)."""
     D, B = n_devices, ends_per_chip

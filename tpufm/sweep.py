@@ -18,7 +18,7 @@ import numpy as np
 
 #: engines run_sweep can dispatch (unknown names raise — a typo'd engine
 #: must never silently produce records labeled with a different engine).
-SWEEP_ENGINES = ("xla", "xla-split", "xla-ac", "xla-paired", "pallas")
+SWEEP_ENGINES = ("xla", "xla-split", "xla-ac", "xla-paired")
 
 
 def _make_engine(engine: str, index, lut_m: int):
@@ -29,10 +29,6 @@ def _make_engine(engine: str, index, lut_m: int):
 
     if engine == "xla":
         return XLAEngine(index, lut_m=lut_m)
-    if engine == "pallas":
-        from tpufm.engine.pallas_kernel import PallasEngine
-
-        return PallasEngine(index, lut_m=lut_m)
     if engine == "xla-split":
         return XLAEngine(index, layout="split", lut_m=lut_m)
     if engine == "xla-paired":

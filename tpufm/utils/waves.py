@@ -3,8 +3,8 @@
 Every engine streams oversized batches through the device in fixed-size
 waves (one compiled shape, constant device memory), optionally keeping
 several dispatches in flight so host<->device staging overlaps compute.
-This is the single implementation all engines use (XLA search, Pallas
-search, locate walk, sharded mesh search).
+This is the single implementation all engines use (XLA search, locate
+walk, sharded mesh search).
 """
 
 from __future__ import annotations
